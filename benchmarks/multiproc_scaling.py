@@ -1,4 +1,4 @@
-"""Multi-PROCESS sharded-train-step record (VERDICT r3 missing #3b).
+"""Multi-PROCESS sharded-train-step record.
 
 tests/test_multihost.py proves the 2-process jax.distributed path works;
 this harness RECORDS it as a benchmark artifact: it spawns N worker
@@ -11,9 +11,9 @@ process boundary every step.
 The record is tagged "simulated": true and carries NO efficiency field:
 virtual CPU devices serialize on one socket, so this measures topology
 and correctness (the cross-process collective runs, losses agree
-bit-identically), never scaling. Real >=90% efficiency needs the pod
-slice (BASELINE config 5); this is the recordable part of that story on
-this machine.
+bit-identically), never scaling. Real >=90% efficiency needs real
+devices (BASELINE config 5); this is the recordable part of that story
+on a machine without them.
 
     python benchmarks/multiproc_scaling.py [--procs 2] [--iters 5]
 Prints one JSON record on stdout (optionally appends to --out).

@@ -3,8 +3,8 @@
 The occluding sphere sits far above the camera frustum: no primary ray
 ever hits it, so the unshadowed image is bit-identical with or without it
 (the script asserts this). The only evidence of its existence is the soft
-shadow it throws on the ground plane - and because the fused Pallas
-fwd+bwd kernels (render/pallas_soft.py) differentiate *through the shadow
+shadow it throws on the ground plane - and because the soft renderer
+(render/softmin.py) differentiates *through the shadow
 term*, gradient descent on the image loss recovers its position anyway.
 
 This is strictly impossible in the reference renderer (CUDA,
@@ -35,7 +35,8 @@ import optax
 
 from rtwc_tpu.camera import Camera, default_camera
 from rtwc_tpu.config import RenderConfig
-from rtwc_tpu.render.pallas_soft import render_frame_soft_pallas
+from rtwc_tpu.render import render_frame_soft
+from rtwc_tpu.utils.compile_cache import enable_compile_cache
 from rtwc_tpu.scene import add_plane, add_sphere, empty_scene
 
 TRUE_OCCLUDER = (2.0, 26.0, 20.0)  # between the light (1, 50, 0) and the floor
@@ -64,6 +65,7 @@ def main(argv=None) -> int:
     p.add_argument("--offset", type=float, nargs=2, default=(3.0, 4.0),
                    help="initial occluder (x, z) displacement from the truth")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     cfg, true_scene = build(args.width, args.height)
     cam = Camera(pos=jnp.asarray(default_camera().pos),
@@ -74,16 +76,16 @@ def main(argv=None) -> int:
     no_occ = true_scene.replace(spheres=true_scene.spheres.replace(
         active=jnp.asarray(true_scene.spheres.active).at[1].set(0.0)))
     lit_cfg = cfg.replace(shadows=False)
-    img_with = render_frame_soft_pallas(true_scene, cam, lit_cfg, tau=args.tau).rgb
-    img_without = render_frame_soft_pallas(no_occ, cam, lit_cfg, tau=args.tau).rgb
+    img_with = render_frame_soft(true_scene, cam, lit_cfg, tau=args.tau).rgb
+    img_without = render_frame_soft(no_occ, cam, lit_cfg, tau=args.tau).rgb
     occ_visible = float(jnp.max(jnp.abs(img_with - img_without)))
     print(f"occluder silhouette contribution (unshadowed): {occ_visible:.2e} "
           f"(must be ~0: out of frustum)")
 
-    target = render_frame_soft_pallas(true_scene, cam, cfg, tau=args.tau).rgb
+    target = render_frame_soft(true_scene, cam, cfg, tau=args.tau).rgb
     target = jax.lax.stop_gradient(target)
     shadow_signal = float(jnp.max(jnp.abs(
-        target - render_frame_soft_pallas(no_occ, cam, cfg, tau=args.tau).rgb)))
+        target - render_frame_soft(no_occ, cam, cfg, tau=args.tau).rgb)))
     print(f"cast-shadow signal in the target: {shadow_signal:.1f}/255")
 
     true_xz = jnp.asarray([TRUE_OCCLUDER[0], TRUE_OCCLUDER[2]], jnp.float32)
@@ -95,7 +97,7 @@ def main(argv=None) -> int:
             center=jnp.asarray(true_scene.spheres.center).at[1].set(c)))
 
     def loss_fn(xz):
-        fb = render_frame_soft_pallas(scene_at(xz), cam, cfg, tau=args.tau)
+        fb = render_frame_soft(scene_at(xz), cam, cfg, tau=args.tau)
         return jnp.mean(((fb.rgb - target) / 255.0) ** 2)
 
     opt = optax.adam(args.lr)

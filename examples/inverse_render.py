@@ -1,6 +1,6 @@
 """Inverse rendering demo (BASELINE config 3): recover sphere geometry and
 camera pose from a SHARP target image by coarse-to-fine annealed gradient
-descent through the fused Pallas fwd+bwd kernels.
+descent through the differentiable soft renderer (render/softmin.py).
 
 The reference renderer (CUDA, RayTracing.cu) cannot do any of this - its
 closest-hit logic is branch-hard. Here d(pixel)/d(geometry, pose) exists
@@ -54,7 +54,8 @@ from rtwc_tpu.camera import Camera, basis, default_camera, projection_elements
 from rtwc_tpu.config import RenderConfig
 from rtwc_tpu.heads.ansi256 import quantize_rgb_ste
 from rtwc_tpu.render.anneal import AnnealSchedule
-from rtwc_tpu.render.pallas_soft import render_frame_soft_pallas
+from rtwc_tpu.render import render_frame_soft
+from rtwc_tpu.utils.compile_cache import enable_compile_cache
 from rtwc_tpu.scene import add_plane, add_sphere, empty_scene
 
 
@@ -153,6 +154,7 @@ def main(argv=None) -> int:
                    help="write a JSON artifact (per-stage losses, final "
                         "errors, wall clock) to this path")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     cfg, true_scene = build(args.width, args.height, args.spheres)
     e1, e2 = projection_elements(cfg)
@@ -161,7 +163,7 @@ def main(argv=None) -> int:
     stages = list(sched.configs(cfg))
     true_cam = Camera(pos=jnp.asarray(default_camera().pos),
                       rot=jnp.asarray(default_camera().rot))
-    fb_t = render_frame_soft_pallas(true_scene, true_cam, stages[-1][1],
+    fb_t = render_frame_soft(true_scene, true_cam, stages[-1][1],
                                     tau=stages[-1][0])
     target_rgb = fb_t.rgb
     if args.quantized:
@@ -181,7 +183,7 @@ def main(argv=None) -> int:
 
         def make_step(stage_tau, stage_cfg, w_sil):
             def loss_fn(p):
-                fb = render_frame_soft_pallas(p[0], p[1], stage_cfg, tau=stage_tau)
+                fb = render_frame_soft(p[0], p[1], stage_cfg, tau=stage_tau)
                 rgb = quantize_rgb_ste(fb.rgb) if args.quantized else fb.rgb
                 loss = jnp.mean(((rgb - target) / 255.0) ** 2)
                 if w_sil:

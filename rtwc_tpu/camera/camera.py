@@ -97,9 +97,19 @@ def camera_rays(
 
     Returns (origin [3], dirs [n_rows, W, 3]). Differentiable in pos/rot.
     """
+    right, up, forward = basis(camera.rot)
+    return camera.pos, basis_rays(right, up, forward, width, height, e1, e2,
+                                  row_start, n_rows)
+
+
+def basis_rays(right, up, forward, width: int, height: int, e1: float,
+               e2: float, row_start: jax.Array | int = 0,
+               n_rows: int | None = None) -> jax.Array:
+    """camera_rays from an explicit (right, up, forward) basis: the unit
+    ray directions [n_rows, W, 3] (the packed-camera kernels carry the
+    basis, not the Euler angles)."""
     if n_rows is None:
         n_rows = height
-    right, up, forward = basis(camera.rot)
     col = jnp.arange(width, dtype=jnp.float32)
     row = jnp.asarray(row_start, jnp.float32) + jnp.arange(n_rows, dtype=jnp.float32)
     cx = (2.0 * col - width) / width                    # [W]
@@ -112,4 +122,4 @@ def camera_rays(
     col1 = jnp.stack([right[..., 1], up[..., 1], forward[..., 1]], axis=-1)
     col2 = jnp.stack([right[..., 2], up[..., 2], forward[..., 2]], axis=-1)
     d = vx[..., None] * col0 + vy[..., None] * col1 + col2   # [n_rows, W, 3]
-    return camera.pos, normalize(d)
+    return normalize(d)

@@ -2,10 +2,9 @@
 
 The reference's only 'communication backend' is cudaMemcpy +
 cudaDeviceSynchronize inside one process (RayTracingManager.cu:83,137-143).
-The TPU-native equivalent (SURVEY.md section 5) is the JAX distributed
-runtime: every host calls initialize_multihost() first thing, then builds
-one global mesh over all chips; collectives ride ICI within a slice and
-DCN across hosts without further code.
+Here it is the JAX distributed runtime (SURVEY.md section 5): every
+process calls initialize_multihost() first thing, then builds one global
+mesh over all devices; XLA runs the collectives without further code.
 """
 from __future__ import annotations
 
@@ -23,17 +22,17 @@ def initialize_multihost(
 ) -> bool:
     """Initialize jax.distributed when running multi-process.
 
-    No-ops (returns False) when the environment is single-process and no
-    coordinator is configured, so single-chip users never pay for it.
-    TPU pod environments auto-discover all arguments.
+    No-ops (returns False) when no coordinator is configured (argument
+    or JAX_COORDINATOR_ADDRESS / COORDINATOR_ADDRESS), so single-process
+    users never pay for it. Nothing discovers a cluster by itself: give
+    the coordinator address, num_processes and process_id.
     """
     import os
 
     configured = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS") or os.environ.get(
         "COORDINATOR_ADDRESS"
     )
-    in_pod_env = any(k in os.environ for k in ("TPU_WORKER_HOSTNAMES", "MEGASCALE_COORDINATOR_ADDRESS"))
-    if not configured and not in_pod_env:
+    if not configured:
         return False
     try:
         jax.distributed.initialize(

@@ -5,7 +5,7 @@ and the jitted render step; per frame it polls input, integrates camera
 movement, renders, and hands encoded bytes to the presenter; once per
 second it publishes FPS and spawns a random test sphere (Engine3D.cpp:30-79).
 
-TPU-native structure of one frame (vs RayTracingManager::Update's
+Structure of one frame (vs RayTracingManager::Update's
 upload -> kernels -> sync -> D2H -> minimize -> publish sequence,
 RayTracingManager.cu:76-154):
 
@@ -30,6 +30,7 @@ from rtwc_tpu.config import EngineConfig, RenderConfig, RenderMode
 from rtwc_tpu.heads import framebuffer_to_cells, encode_frame
 from rtwc_tpu.io import ConsolePresenter, FramebufferSink, InputHandler
 from rtwc_tpu.render import render_frame
+from rtwc_tpu.render.backend import use_kernels
 from rtwc_tpu.scene import (
     Scene, default_scene, grow_scene, spawn_random_sphere, update_scene,
 )
@@ -38,13 +39,11 @@ from rtwc_tpu.utils import Timer, Telemetry
 log = logging.getLogger("rtwc_tpu")
 
 
-def _pick_renderer(config: RenderConfig):
-    """Display-path forward renderer: the fused Pallas kernel on TPU
-    (render/pallas_kernel.py), the jnp reference renderer elsewhere
-    (they are allclose; tests/test_pallas.py)."""
-    if config.renderer == "pallas" or (
-        config.renderer == "auto" and jax.default_backend() == "tpu"
-    ):
+def _pick_renderer():
+    """Display-path forward renderer: the fused kernel on the GPU
+    (render/pallas_kernel.py), the jnp reference renderer on the CPU
+    (they are allclose; tests/test_pallas.py). render/backend.py decides."""
+    if use_kernels():
         from rtwc_tpu.render.pallas_kernel import render_frame_pallas
 
         return render_frame_pallas
@@ -57,7 +56,7 @@ def _render_step(scene: Scene, camera: Camera, dt, config: RenderConfig):
     from rtwc_tpu.render.reference import downsample_framebuffer, supersampled_config
 
     scene = update_scene(scene, dt, config.bob_min_y, config.bob_max_y)
-    fb = _pick_renderer(config)(scene, camera, supersampled_config(config))
+    fb = _pick_renderer()(scene, camera, supersampled_config(config))
     fb = downsample_framebuffer(fb, config.supersample)
     cells = framebuffer_to_cells(fb, config)
     return scene, cells
@@ -152,7 +151,7 @@ class Engine:
         """1 Hz random sphere (Engine3D.cpp:63). When the pool is full the
         capacity doubles first (the reference's ptr-array doubling,
         Scene3D.cpp:107-129) up to ecfg.max_grow_spheres; the next jitted
-        step recompiles once per doubling - the TPU's realloc."""
+        step recompiles once per doubling - the static-shape realloc."""
         cap = self.scene.spheres.capacity
         if self.scene.n_spheres >= cap:
             if not self.ecfg.auto_grow or cap >= self.ecfg.max_grow_spheres:

@@ -16,7 +16,7 @@ from rtwc_tpu.config import EngineConfig, RenderConfig, RenderMode
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="rtwc_tpu",
-        description="TPU-native differentiable console ray tracer",
+        description="Differentiable console ray tracer (JAX; Pallas kernels on the GPU)",
     )
     p.add_argument("--width", type=int, default=0, help="cells; 0 = fit terminal")
     p.add_argument("--height", type=int, default=0, help="cells; 0 = fit terminal")
@@ -27,8 +27,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--shadows", action="store_true", help="hard shadows (new capability)")
     p.add_argument("--supersample", type=int, default=1,
                    help="anti-aliasing: N^2 rays per cell, box-filtered (new capability)")
-    p.add_argument("--renderer", choices=["auto", "jnp", "pallas"], default="auto",
-                   help="forward renderer: auto = pallas kernel on TPU, jnp elsewhere")
     p.add_argument("--max-spheres", type=int, default=256)
     p.add_argument("--no-spawn", action="store_true", help="disable the 1 Hz random sphere spawn")
     p.add_argument("--no-fps", action="store_true")
@@ -66,7 +64,6 @@ def main(argv=None) -> int:
         far=args.far,
         shadows=args.shadows,
         supersample=max(1, args.supersample),
-        renderer=args.renderer,
         max_spheres=args.max_spheres,
     )
     ecfg = EngineConfig(
@@ -91,6 +88,9 @@ def main(argv=None) -> int:
 
     from rtwc_tpu.engine import Engine  # import after flags: jax warm-up is slow
     from rtwc_tpu.utils import profiler_trace
+    from rtwc_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     engine = Engine(rcfg, ecfg, scene=scene, camera=camera)
     interrupted = False

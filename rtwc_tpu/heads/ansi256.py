@@ -145,6 +145,6 @@ def quantize_rgb_ste(rgb: jax.Array) -> jax.Array:
     """Straight-through-estimator quantization head: forward = the palette
     color of the chosen ANSI index, backward = identity. Keeps pipelines
     that train through the quantized console image differentiable
-    (SURVEY.md section 2 row 9's TPU-native equivalent)."""
+    (SURVEY.md section 2 row 9's native equivalent)."""
     q = rgb_from_ansi256(ansi256_from_rgb(rgb)).astype(rgb.dtype)
     return rgb + jax.lax.stop_gradient(q - rgb)

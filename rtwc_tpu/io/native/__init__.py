@@ -1,6 +1,6 @@
 """ctypes loader for the native C++ ANSI encoder (ansi_encoder.cpp).
 
-The runtime around the TPU compute path stays native where the reference's
+The runtime around the device compute path stays native where the reference's
 is (PrintMachine/Minimize* are C++ host code, RayTracingManager.cu:167-319,
 PrintMachine.cpp): the per-frame byte-formatting pass is the host hot loop
 at large resolutions, so it is compiled C++, built on demand with g++ into

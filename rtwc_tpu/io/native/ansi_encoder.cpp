@@ -1,6 +1,6 @@
 // Native ANSI escape-stream encoder with run-length minimization.
 //
-// The TPU-native framework's equivalent of the reference's host hot loop:
+// This framework's equivalent of the reference's host hot loop:
 // RayTracingManager::Minimize8bit / MinimizeRGB (RayTracingManager.cu:167-319)
 // which run-length-compress the device-produced fixed-stride char framebuffer
 // before the console blit. Here the device produces compact (kind, color,

@@ -1,6 +1,6 @@
 // Native print machine: double-buffered background console blitter.
 //
-// The TPU-native framework keeps its runtime native where the reference's
+// The framework keeps its runtime native where the reference's
 // is: PrintMachine (PrintMachine.h/.cpp) is C++ host code running a
 // dedicated detached print thread that swaps a mutex-guarded double buffer
 // and fwrite()s whole frames to the console at its own rate, decoupled

@@ -46,13 +46,25 @@ def _penalty(x: jax.Array, k: float) -> jax.Array:
     return jax.nn.softplus(-k * x) / k
 
 
+def perp_discriminant(oc, dirs, half_b, radius):
+    """b^2 - 4c of the unit-direction ray/sphere quadratic (b = 2 d.oc,
+    c = |oc|^2 - r^2) in its perpendicular form 4 (r^2 - |oc - (d.oc) d|^2).
+    The textbook form cancels two terms of size |oc|^2 at grazing rays,
+    so its rounding error scales with the squared distance; here it
+    scales with distance times radius. Softmin weights at silhouettes
+    hang on this value, so two float32 programs that round it
+    differently would disagree there by a few per cent."""
+    perp = oc - half_b[..., None] * dirs
+    return 4.0 * (radius**2 - jnp.sum(perp * perp, axis=-1))
+
+
 def _soft_sphere_terms(origin, dirs, spheres, k: float, miss_penalty: float, far: float):
     """Soft sphere intersection (Sphere.cu:30-68 semantics): returns
     (t_eff [..,N], t_clip [..,N], normal [..,N,3])."""
     oc = origin - spheres.center                        # [N, 3]
-    b = 2.0 * jnp.einsum("...k,nk->...n", dirs, oc, precision=jax.lax.Precision.HIGHEST)     # [..., N]
-    c = dot(oc, oc) - spheres.radius**2                 # [N]
-    disc = b * b - 4.0 * c                              # unit dirs: a == 1
+    half_b = jnp.einsum("...k,nk->...n", dirs, oc, precision=jax.lax.Precision.HIGHEST)  # [..., N]
+    b = 2.0 * half_b
+    disc = perp_discriminant(oc, dirs[..., None, :], half_b, spheres.radius)
     sq = jnp.sqrt(jnp.maximum(disc, 1e-12))
     t1 = 0.5 * (-b + sq)
     t2 = 0.5 * (-b - sq)
@@ -114,9 +126,9 @@ def _soft_shadow_visibility(scene: Scene, point, config: RenderConfig):
 
     sp = scene.spheres
     oc = o[..., None, :] - sp.center                                 # [..., N, 3]
-    b = 2.0 * jnp.sum(d[..., None, :] * oc, axis=-1)
-    c = jnp.sum(oc * oc, axis=-1) - sp.radius**2
-    disc = b * b - 4.0 * c
+    half_b = jnp.sum(d[..., None, :] * oc, axis=-1)
+    b = 2.0 * half_b
+    disc = perp_discriminant(oc, d[..., None, :], half_b, sp.radius)
     sq = jnp.sqrt(jnp.maximum(disc, 1e-12))
     t1 = 0.5 * (-b + sq)
     t2 = 0.5 * (-b - sq)
@@ -229,3 +241,41 @@ def render_frame_soft(
     hit = depth <= config.far * (1.0 - 1e-4)
     return Framebuffer(rgb=rgb, normal=normal, depth=depth, shading=normal[..., 0], hit=hit,
                        coverage=hit.astype(jnp.float32), alpha=alpha)
+
+
+# Per-sub-band cap on band_mse_loss's [rows, W, n_obj, 3] shading
+# intermediates.
+_CHUNK_BYTES = 128 * 2**20
+
+
+def band_mse_loss(scene: Scene, camera: Camera, target_band, config: RenderConfig,
+                  tau: float, row0=0) -> jax.Array:
+    """mean(((rgb - target_band)/255)^2) of the soft render over a band of
+    target_band.shape[0] image rows starting at (traced) row0: the jnp
+    reference of the fused MSE kernel (render/pallas_soft.py).
+
+    The rows are cut into sub-bands so the [r, W, n_obj, 3] shading
+    intermediates stay bounded (4K with 200 spheres would otherwise
+    materialize hundreds of GB), and each sub-band is jax.checkpoint'ed so
+    reverse-mode stores only its inputs and recomputes the forward."""
+    rows = target_band.shape[0]
+    e1, e2 = projection_elements(config)
+    n_obj = scene.spheres.capacity + scene.planes.center.shape[0]
+    bytes_per_row = config.width * n_obj * 3 * 4
+    sub = max(1, min(rows, _CHUNK_BYTES // max(1, bytes_per_row)))
+    while rows % sub:
+        sub -= 1
+
+    def sub_band(r0):
+        origin, dirs = camera_rays(camera, config.width, config.height, e1, e2,
+                                   row_start=r0, n_rows=sub)
+        return trace_soft(scene, origin, dirs, config, tau=tau)[0]
+
+    if sub == rows:
+        rgb = sub_band(row0)
+    else:
+        r0s = row0 + jnp.arange(rows // sub) * sub
+        rgb = jax.lax.map(jax.checkpoint(sub_band), r0s).reshape(
+            rows, config.width, 3)
+    err = (rgb - target_band) / 255.0
+    return jnp.mean(err * err)

@@ -3,7 +3,7 @@
 Each worker is one 'host' of a 2-process jax.distributed CPU cluster
 (SURVEY.md section 5 'Distributed communication backend': the reference has
 none - cudaMemcpy/DeviceSynchronize only, RayTracingManager.cu:83,137-143 -
-so the TPU-native equivalent is the JAX multi-process runtime). The worker
+so the equivalent here is the JAX multi-process runtime). The worker
 initializes through rtwc_tpu.dist.initialize_multihost (the production
 entry point), builds ONE GLOBAL mesh spanning both processes' devices, and
 runs one sharded train step; gradients pmean across the process boundary.

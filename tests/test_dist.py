@@ -47,8 +47,8 @@ def test_sharded_pallas_display_matches_single_device(n):
 
     mesh = make_mesh(n)
     scene, cam = default_scene(CFG), default_camera()
-    fb_single = render_frame_pallas(scene, cam, CFG)
-    fb_sharded = render_frame_sharded(scene, cam, CFG, mesh, backend="pallas")
+    fb_single = render_frame_pallas(scene, cam, CFG, interpret=True)
+    fb_sharded = render_frame_sharded(scene, cam, CFG, mesh, interpret=True)
     for name in ("rgb", "normal", "depth", "shading"):
         np.testing.assert_allclose(
             np.asarray(getattr(fb_single, name)),
@@ -124,17 +124,18 @@ def test_sharded_pallas_backend_matches_jnp():
     scene, cam = default_scene(cfg), default_camera()
     target = render_frame_soft(scene, cam, cfg, tau=0.5).rgb + 10.0
 
-    def one_sgd_step(backend):
+    def one_sgd_step(kernel):
         step = make_sharded_train_step(cfg, mesh, tau=0.5,
-                                       optimizer=optax.sgd(1.0), backend=backend)
+                                       optimizer=optax.sgd(1.0),
+                                       interpret=kernel)
         params = (scene, cam)
         (new_scene, _), _, loss = step(params, step.init(params), target)
         grads = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b),
                              scene, new_scene)
         return float(loss), grads
 
-    loss_j, g_j = one_sgd_step("jnp")
-    loss_p, g_p = one_sgd_step("pallas")
+    loss_j, g_j = one_sgd_step(False)
+    loss_p, g_p = one_sgd_step(True)
     assert abs(loss_j - loss_p) < 1e-6 * max(1.0, abs(loss_j))
     np.testing.assert_allclose(g_p.spheres.center, g_j.spheres.center,
                                rtol=2e-2, atol=1e-7)
@@ -154,17 +155,18 @@ def test_sharded_pallas_backend_matches_jnp_shadowed():
     scene, cam = default_scene(cfg), default_camera()
     target = render_frame_soft(scene, cam, cfg, tau=0.5).rgb + 10.0
 
-    def one_sgd_step(backend):
+    def one_sgd_step(kernel):
         step = make_sharded_train_step(cfg, mesh, tau=0.5,
-                                       optimizer=optax.sgd(1.0), backend=backend)
+                                       optimizer=optax.sgd(1.0),
+                                       interpret=kernel)
         params = (scene, cam)
         (new_scene, _), _, loss = step(params, step.init(params), target)
         grads = jax.tree.map(lambda a, b: np.asarray(a) - np.asarray(b),
                              scene, new_scene)
         return float(loss), grads
 
-    loss_j, g_j = one_sgd_step("jnp")
-    loss_p, g_p = one_sgd_step("pallas")
+    loss_j, g_j = one_sgd_step(False)
+    loss_p, g_p = one_sgd_step(True)
     assert abs(loss_j - loss_p) < 1e-6 * max(1.0, abs(loss_j))
     np.testing.assert_allclose(g_p.spheres.center, g_j.spheres.center,
                                rtol=2e-2, atol=1e-6)
@@ -238,21 +240,20 @@ def test_sharded_grads_match_single_device():
 
 
 def test_gradient_allreduce_is_single_fused_collective():
-    """Schedule evidence for the BASELINE overlap north star (see
-    scripts/overlap_check.py and OVERLAP_r05.json for the real v5e-8
-    AOT schedule): the sharded train step's gradient reduction compiles
-    to exactly ONE step-level cross-device all-reduce that carries every
-    gradient leaf of the (scene, camera) pytree at once - not one
-    collective per leaf, and with nothing left outside the collective.
-    With the one-pass fused kernel all leaves materialize atomically at
-    kernel end, so a single fused KB-scale collective (us on ICI) is the
-    optimal schedule; this test pins that structure on the 8-virtual-
-    device mesh so a regression to per-leaf collectives is caught."""
+    """Schedule evidence for the BASELINE overlap north star: the sharded
+    train step's gradient reduction compiles to exactly ONE step-level
+    cross-device all-reduce that carries every gradient leaf of the
+    (scene, camera) pytree at once - not one collective per leaf, and
+    with nothing left outside the collective. With the one-pass fused
+    kernel all leaves materialize at kernel end, so a single fused
+    KB-scale collective is the schedule to keep; this test pins that
+    structure on the 8-virtual-device mesh so a regression to per-leaf
+    collectives is caught."""
     cfg = RenderConfig(width=256, height=64, max_spheres=8, max_planes=2,
                        shadows=True, soft_miss_penalty=300.0,
                        soft_mask_k=10.0)
     mesh = make_mesh(8)
-    step = make_sharded_train_step(cfg, mesh, tau=0.5, backend="pallas")
+    step = make_sharded_train_step(cfg, mesh, tau=0.5, interpret=True)
     scene = default_scene(cfg)
     params = (scene, default_camera())
     opt_state = step.init(params)

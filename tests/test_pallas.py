@@ -1,6 +1,7 @@
-"""Pallas kernel vs jnp reference renderer: golden allclose tests
-(SURVEY.md section 4). On CPU these run the kernel in interpreter mode;
-on TPU the same tests exercise the compiled Mosaic kernel."""
+"""Hard Pallas kernel vs jnp reference renderer: golden allclose tests
+(SURVEY.md section 4). Here the Triton-route kernel runs in the Pallas
+interpreter; chip_smoke.py makes the same comparison with the kernel
+compiled for the GPU."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +19,7 @@ CFG = RenderConfig(width=120, height=48, max_spheres=16, max_planes=4)
 
 def _compare(scene, cam, cfg, atol=2e-3):
     ref = render_frame(scene, cam, cfg)
-    ker = render_frame_pallas(scene, cam, cfg)
+    ker = render_frame_pallas(scene, cam, cfg, interpret=True)
     hit_ref = np.asarray(ref.hit)
     hit_ker = np.asarray(ker.hit)
     # hit masks may differ on a measure-zero silhouette set; require ~equal
@@ -66,6 +67,6 @@ def test_pallas_nondivisible_resolution():
 
 def test_pallas_empty_scene_is_background():
     s = empty_scene(8, 2)
-    fb = render_frame_pallas(s, default_camera(), CFG)
+    fb = render_frame_pallas(s, default_camera(), CFG, interpret=True)
     assert not bool(np.asarray(fb.hit).any())
     assert (np.asarray(fb.rgb) == 0).all()

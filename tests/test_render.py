@@ -135,7 +135,7 @@ def test_supersample_smooths_edges():
 
 
 def test_supersample_partial_cells_display_color():
-    """Regression (ADVICE r1): the DISPLAY path must keep the AA blend on
+    """Regression: the DISPLAY path must keep the AA blend on
     silhouette cells with <50% coverage - the mode head masks color by
     coverage > 0, not by the majority hit rule (which still drives glyphs)."""
     from rtwc_tpu.config import RenderMode
